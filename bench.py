@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Driver entry point: delegates to dvda_tpu.cli.bench (the packaged
+"""Driver entry point: delegates to dvda.cli.bench (the packaged
 benchmark).  Prints ONE JSON line with the headline metric."""
 
 import os
@@ -9,10 +9,10 @@ _repo = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _repo)
 # repo-local persistent compilation cache: repeat bench runs (and the
 # driver's end-of-round run) skip the 20-80 s first-compiles
-os.environ.setdefault("DVDA_TPU_COMPILE_CACHE",
+os.environ.setdefault("DVDA_COMPILE_CACHE",
                       os.path.join(_repo, ".jaxcache"))
 
-from dvda_tpu.cli.bench import main
+from dvda.cli.bench import main
 
 if __name__ == "__main__":
     main()

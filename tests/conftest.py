@@ -17,10 +17,10 @@ if "xla_force_host_platform_device_count" not in flags:
 
 # keep the persistent compilation cache inside the repo for test runs
 # (XLA programs are deterministic in the geometry, so repeat suite runs
-# skip their first-compiles); tests that set DVDA_TPU_* decode knobs
+# skip their first-compiles); tests that set DVDA_* decode knobs
 # never touch this one
 os.environ.setdefault(
-    "DVDA_TPU_COMPILE_CACHE",
+    "DVDA_COMPILE_CACHE",
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                  ".jaxcache"))
 
@@ -51,7 +51,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import pytest  # noqa: E402
 
-from dvda_tpu.testutil import oracle  # noqa: E402
+from dvda.testutil import oracle  # noqa: E402
 
 
 @pytest.fixture(scope="session")

@@ -6,17 +6,17 @@ import os
 
 import numpy as np
 
-from dvda_tpu.api import DVDA, TrackReader
-from dvda_tpu.config import DecodeConfig
-from dvda_tpu.container.aob import AOBReader
-from dvda_tpu.container.sources import (
+from dvda.api import DVDA, TrackReader
+from dvda.config import DecodeConfig
+from dvda.container.aob import AOBReader
+from dvda.container.sources import (
     CallableSectorSource,
     FileSectorSource,
     SourceAOBReader,
 )
-from dvda_tpu.testutil.synth import PcmTrackSpec, build_disc
-from dvda_tpu.utils.log import configure, logger
-from dvda_tpu.utils.profiling import ByteCounter, StageTimer, trace
+from dvda.testutil.synth import PcmTrackSpec, build_disc
+from dvda.utils.log import configure, logger
+from dvda.utils.profiling import ByteCounter, StageTimer, trace
 
 
 def _disc(tmp_path):
@@ -90,34 +90,34 @@ def test_byte_counter():
 
 
 def test_config_env(monkeypatch):
-    monkeypatch.setenv("DVDA_TPU_DISABLE_DEVICE", "1")
-    monkeypatch.setenv("DVDA_TPU_DISABLE_NATIVE", "1")
-    monkeypatch.setenv("DVDA_TPU_DISABLE_NATIVE_DEMUX", "1")
-    monkeypatch.setenv("DVDA_TPU_MULTI_DEVICE", "1")
+    monkeypatch.setenv("DVDA_DISABLE_DEVICE", "1")
+    monkeypatch.setenv("DVDA_DISABLE_NATIVE", "1")
+    monkeypatch.setenv("DVDA_DISABLE_NATIVE_DEMUX", "1")
+    monkeypatch.setenv("DVDA_MULTI_DEVICE", "1")
     cfg = DecodeConfig.from_env()
     assert not cfg.use_device and not cfg.use_native
     assert not cfg.use_native_demux and cfg.multi_device
 
 
 def test_config_compile_cache_env(monkeypatch, tmp_path):
-    from dvda_tpu.config import env_compile_cache
+    from dvda.config import env_compile_cache
 
-    monkeypatch.setenv("DVDA_TPU_COMPILE_CACHE", "0")
+    monkeypatch.setenv("DVDA_COMPILE_CACHE", "0")
     assert env_compile_cache() == ""
-    monkeypatch.setenv("DVDA_TPU_COMPILE_CACHE", str(tmp_path / "cc"))
+    monkeypatch.setenv("DVDA_COMPILE_CACHE", str(tmp_path / "cc"))
     assert env_compile_cache() == str(tmp_path / "cc")
-    monkeypatch.delenv("DVDA_TPU_COMPILE_CACHE")
+    monkeypatch.delenv("DVDA_COMPILE_CACHE")
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
-    assert env_compile_cache() == str(tmp_path / "xdg" / "dvda_tpu" / "jax")
+    assert env_compile_cache() == str(tmp_path / "xdg" / "dvda" / "jax")
 
 
 def test_compile_cache_applied():
-    # conftest points DVDA_TPU_COMPILE_CACHE at the repo-local .jaxcache
+    # conftest points DVDA_COMPILE_CACHE at the repo-local .jaxcache
     # and the ops package enables it at import; the helper is idempotent
     import jax
 
-    from dvda_tpu import ops  # noqa: F401  (triggers ensure at import)
-    from dvda_tpu.utils.jaxcache import ensure_compile_cache
+    from dvda import ops  # noqa: F401  (triggers ensure at import)
+    from dvda.utils.jaxcache import ensure_compile_cache
 
     active = ensure_compile_cache()
     assert active == ensure_compile_cache()  # idempotent
@@ -148,19 +148,19 @@ def test_config_filter_unroll_resolver(caplog):
     assert DecodeConfig(filter_unroll=4).resolved_filter_unroll() == 4
     assert DecodeConfig(filter_unroll=0).resolved_filter_unroll() == 1
     cfg = DecodeConfig(filter_kernel="pallas", filter_unroll=4)
-    with caplog.at_level("WARNING", logger="dvda_tpu"):
+    with caplog.at_level("WARNING", logger="dvda"):
         assert cfg.resolved_filter_unroll() == 1
     assert any("no effect" in r.message for r in caplog.records)
 
 
 def test_config_device_huffman_env_strict(monkeypatch):
-    """Unrecognized DVDA_TPU_DEVICE_HUFFMAN values raise instead of
+    """Unrecognized DVDA_DEVICE_HUFFMAN values raise instead of
     silently meaning auto (which could flip the decode mode away from
     what the operator pinned)."""
     import pytest
 
-    monkeypatch.setenv("DVDA_TPU_DEVICE_HUFFMAN", "true")
-    with pytest.raises(ValueError, match="DVDA_TPU_DEVICE_HUFFMAN"):
+    monkeypatch.setenv("DVDA_DEVICE_HUFFMAN", "true")
+    with pytest.raises(ValueError, match="DVDA_DEVICE_HUFFMAN"):
         DecodeConfig.from_env()
 
 
@@ -188,11 +188,11 @@ def test_config_device_huffman_auto(monkeypatch):
     monkeypatch.setattr(os, "cpu_count", lambda: 16 * n - 1)
     assert DecodeConfig(multi_device=True).resolved_device_huffman()
     # env: explicit 1/0 force, unset = auto (None)
-    monkeypatch.setenv("DVDA_TPU_DEVICE_HUFFMAN", "1")
+    monkeypatch.setenv("DVDA_DEVICE_HUFFMAN", "1")
     assert DecodeConfig.from_env().device_huffman is True
-    monkeypatch.setenv("DVDA_TPU_DEVICE_HUFFMAN", "0")
+    monkeypatch.setenv("DVDA_DEVICE_HUFFMAN", "0")
     assert DecodeConfig.from_env().device_huffman is False
-    monkeypatch.delenv("DVDA_TPU_DEVICE_HUFFMAN")
+    monkeypatch.delenv("DVDA_DEVICE_HUFFMAN")
     assert DecodeConfig.from_env().device_huffman is None
 
 
@@ -201,9 +201,9 @@ def test_config_object_toggles_decode_paths(tmp_path):
     path — all three engine tiers must agree bit-exactly."""
     import numpy as np
 
-    import dvda_tpu
-    from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-    from dvda_tpu.testutil.synth import MlpTrackSpec, build_disc
+    import dvda
+    from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+    from dvda.testutil.synth import MlpTrackSpec, build_disc
 
     mlp = MlpSynthConfig(channel_assignment=1, n_frames=32, seed=5)
     build_disc(str(tmp_path / "AUDIO_TS"),
@@ -211,7 +211,7 @@ def test_config_object_toggles_decode_paths(tmp_path):
                               pcm_frames=mlp.total_pcm_frames)]])
 
     def decode(cfg):
-        disc = dvda_tpu.open_disc(str(tmp_path / "AUDIO_TS"), config=cfg)
+        disc = dvda.open_disc(str(tmp_path / "AUDIO_TS"), config=cfg)
         r = disc.open_titleset(1).open_title(1).open_track(1).open_reader()
         assert r.config is cfg
         return r.read_all()

@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from dvda_tpu.batch import decode_disc, disc_to_wavs
-from dvda_tpu.cppm.c2 import c2_g
-from dvda_tpu.cppm.decrypt import CppmDecryptor, encrypt_sectors
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import MlpTrackSpec, PcmTrackSpec, build_disc
+from dvda.batch import decode_disc, disc_to_wavs
+from dvda.cppm.c2 import c2_g
+from dvda.cppm.decrypt import CppmDecryptor, encrypt_sectors
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import MlpTrackSpec, PcmTrackSpec, build_disc
 
 
 def _disc(tmp_path):
@@ -47,8 +47,8 @@ def test_disc_to_wavs_matches_oracle(tmp_path, ref_oracle):
 def test_device_c2_matches_numpy(tmp_path):
     import jax.numpy as jnp
 
-    from dvda_tpu.container.aob import AOBReader
-    from dvda_tpu.ops.c2_decrypt import dcbc_dec_device
+    from dvda.container.aob import AOBReader
+    from dvda.ops.c2_decrypt import dcbc_dec_device
 
     layout = _disc(tmp_path)
     sectors = AOBReader(layout.path, 1).read_sectors(0, 4).copy()
@@ -67,8 +67,8 @@ def test_multi_titleset_disc(tmp_path):
     a standalone single-titleset disc; decode_disc covers both sets.
     (The reference CLIs hardcode titleset 1 — dvda2wav.c:83 — but the
     library API, dvda_open_titleset, takes any number.)"""
-    from dvda_tpu.api import DVDA
-    from dvda_tpu.testutil.synth import build_disc_multi
+    from dvda.api import DVDA
+    from dvda.testutil.synth import build_disc_multi
 
     mlp = MlpSynthConfig(channel_assignment=1, n_frames=16, seed=5,
                          bits_per_sample=24, sample_rate=96000)
@@ -107,8 +107,8 @@ def test_multi_titleset_split_aobs(tmp_path):
     ATS_XX_N.AOB files (aob.c:38-47 chaining, per titleset)."""
     import os
 
-    from dvda_tpu.api import DVDA
-    from dvda_tpu.testutil.synth import build_disc_multi
+    from dvda.api import DVDA
+    from dvda.testutil.synth import build_disc_multi
 
     layouts = build_disc_multi(str(tmp_path / "AUDIO_TS"), [
         [[PcmTrackSpec(pcm_frames=28800, seed=1)]],

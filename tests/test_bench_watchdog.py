@@ -14,7 +14,7 @@ def test_watchdog_emits_partial_and_exits():
 import os, sys, time
 sys.path.insert(0, %r)
 os.environ["JAX_PLATFORMS"] = "cpu"
-from dvda_tpu.cli import bench
+from dvda.cli import bench
 bench._results_live["mlp_51_hostcomplete"] = {
     "ours_x_realtime": 99.0, "vs_baseline": 3.3}
 bench._start_watchdog(wedge_s=3)

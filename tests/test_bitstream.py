@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dvda_tpu.bitstream import (
+from dvda.bitstream import (
     BitReader,
     BitWriter,
     BitstreamError,
@@ -126,7 +126,7 @@ def test_crc8_parity_empty():
 
 def test_crc8_parity_basic():
     # hand-step the reference algorithm (mlp.c:1360-1399) for 2 bytes
-    from dvda_tpu.bitstream import CRC8_TABLE
+    from dvda.bitstream import CRC8_TABLE
 
     data = bytes([0x12, 0x34])
     crc = 0x3C
@@ -163,7 +163,7 @@ def test_bigint_round_trip():
     """>64-bit fields (reference: mini-gmp-backed br_read_bits_bigint /
     bw_write_bits_bigint, bitstream.h:176-186) round-trip at any width —
     Python bignums replace the vendored 4.7 kLoC dependency."""
-    from dvda_tpu.bitstream import BitReader, BitWriter
+    from dvda.bitstream import BitReader, BitWriter
 
     big = (1 << 999) | (1 << 500) | 0xDEADBEEF
     neg = -(1 << 900) + 12345

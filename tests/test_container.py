@@ -3,11 +3,11 @@ against synthesized discs and the reference dvda-debug-info oracle."""
 
 import numpy as np
 
-from dvda_tpu.api import DVDA
-from dvda_tpu.container.aob import AOBReader, SECTOR_SIZE
-from dvda_tpu.container.ifo import parse_audio_ts_ifo, parse_ats_ifo, resolve_title_toc
-from dvda_tpu.container.packet import PacketReader, demux_audio_packets
-from dvda_tpu.testutil.synth import PcmTrackSpec, build_disc
+from dvda.api import DVDA
+from dvda.container.aob import AOBReader, SECTOR_SIZE
+from dvda.container.ifo import parse_audio_ts_ifo, parse_ats_ifo, resolve_title_toc
+from dvda.container.packet import PacketReader, demux_audio_packets
+from dvda.testutil.synth import PcmTrackSpec, build_disc
 
 
 def _disc(tmp_path, **kw):

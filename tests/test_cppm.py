@@ -6,12 +6,12 @@ synthesised and the drive is a software logical unit)."""
 import numpy as np
 import pytest
 
-from dvda_tpu.container.aob import AOBReader
-from dvda_tpu.cppm.c2 import c2_dec, c2_enc, c2_g
-from dvda_tpu.cppm.css import MockDrive, authenticate_bus_key, crypt_key, read_album_id
-from dvda_tpu.cppm.decrypt import CppmDecryptor, encrypt_sectors
-from dvda_tpu.cppm.mkb import DEVICE_KEYS, process_mkb
-from dvda_tpu.testutil.synth import PcmTrackSpec, build_disc
+from dvda.container.aob import AOBReader
+from dvda.cppm.c2 import c2_dec, c2_enc, c2_g
+from dvda.cppm.css import MockDrive, authenticate_bus_key, crypt_key, read_album_id
+from dvda.cppm.decrypt import CppmDecryptor, encrypt_sectors
+from dvda.cppm.mkb import DEVICE_KEYS, process_mkb
+from dvda.testutil.synth import PcmTrackSpec, build_disc
 
 
 def test_c2_roundtrip():
@@ -127,7 +127,7 @@ def test_cci_reset_native_matches_numpy(monkeypatch):
     after ALL sectors are plaintext since PES walks can cross into the
     decrypted payload) must produce byte-identical sectors to the numpy
     spec path."""
-    from dvda_tpu import host
+    from dvda import host
 
     media_key = 0x00DEADBEEFCAFE42
     album = 0x1122334455667788
@@ -167,7 +167,7 @@ def test_encrypted_disc_decodes(tmp_path):
     the decryptor hooked, compare to the plaintext decode."""
     import os
 
-    from dvda_tpu.api import DVDA
+    from dvda.api import DVDA
 
     media_key = 0x0055AA55AA55AA55
     album = 0x0123456789ABCDEF
@@ -183,8 +183,8 @@ def test_encrypted_disc_decodes(tmp_path):
 
     dec = CppmDecryptor(media_key, album)
     aob = AOBReader(layout.path, 1, decrypt=dec.decrypt_sectors)
-    from dvda_tpu.api import Track, TrackReader
-    from dvda_tpu.container.ifo import parse_ats_ifo, resolve_title_toc
+    from dvda.api import Track, TrackReader
+    from dvda.container.ifo import parse_ats_ifo, resolve_title_toc
 
     with open(os.path.join(layout.path, "ATS_01_0.IFO"), "rb") as f:
         toc = resolve_title_toc(parse_ats_ifo(f.read()), 1)
@@ -233,8 +233,8 @@ def test_from_drive_probe_path(tmp_path):
     cppm.c:193-239): the copyright flag (ioctl_ReadCopyright analog)
     gates everything; the ASF-verified handshake yields the album ID;
     the MKB file yields the media key."""
-    from dvda_tpu.cppm.css import MockDrive
-    from dvda_tpu.cppm.decrypt import COPYRIGHT_CPPM, CppmDecryptor
+    from dvda.cppm.css import MockDrive
+    from dvda.cppm.decrypt import COPYRIGHT_CPPM, CppmDecryptor
 
     media_key = 0x00A1B2C3D4E5F607
     album = 0x1122334455667788
@@ -268,9 +268,9 @@ def test_encrypted_mlp_disc_native_path(tmp_path):
     device pipeline; output equals the plaintext decode."""
     import os
 
-    from dvda_tpu.api import DVDA, TrackReader
-    from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-    from dvda_tpu.testutil.synth import MlpTrackSpec
+    from dvda.api import DVDA, TrackReader
+    from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+    from dvda.testutil.synth import MlpTrackSpec
 
     media_key = 0x00DEADBEEF001122
     album = 0x0F0E0D0C0B0A0908

@@ -7,20 +7,20 @@ import random
 import numpy as np
 import pytest
 
-from dvda_tpu import host
-from dvda_tpu.api import DVDA
-from dvda_tpu.codecs.mlp.engine import BatchedMlpDecoder
-from dvda_tpu.codecs.mlp.native_engine import decode_native
-from dvda_tpu.codecs.mlp.spec import MlpDecoder
-from dvda_tpu.codecs.params import StreamParameters
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
-from dvda_tpu.utils.wav import pack_samples_le, wave_header
+from dvda import host
+from dvda.api import DVDA
+from dvda.codecs.mlp.engine import BatchedMlpDecoder
+from dvda.codecs.mlp.native_engine import decode_native
+from dvda.codecs.mlp.spec import MlpDecoder
+from dvda.codecs.params import StreamParameters
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
+from dvda.utils.wav import pack_samples_le, wave_header
 
 
 def random_config(rng: random.Random) -> MlpSynthConfig:
     assign = rng.choice([0, 1, 2, 4, 6, 7, 12, 17, 18, 20])
-    from dvda_tpu.codecs.params import unpack_channel_count
+    from dvda.codecs.params import unpack_channel_count
 
     nsub = rng.choice([1, 2]) if unpack_channel_count(assign) >= 3 else 1
     return MlpSynthConfig(
@@ -153,7 +153,7 @@ def test_devhuff_random_corruption_matches_spec():
     frames (rolling back the split-mode sub_bitpos tables) or the whole
     decode falls back — either way the output must equal the spec decoder
     on the same bytes, and never crash."""
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     if not host.available():
         pytest.skip("native host library unavailable")

@@ -16,16 +16,16 @@ import logging
 import numpy as np
 import pytest
 
-from dvda_tpu import host
-from dvda_tpu.api import DVDA
-from dvda_tpu.codecs.mlp.native_engine import decode_native
-from dvda_tpu.codecs.mlp.spec import MlpDecoder
-from dvda_tpu.codecs.params import StreamParameters
-from dvda_tpu.config import DecodeConfig
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
-from dvda_tpu.utils.profiling import global_timer
-from dvda_tpu.utils.wav import pack_samples_le, wave_header
+from dvda import host
+from dvda.api import DVDA
+from dvda.codecs.mlp.native_engine import decode_native
+from dvda.codecs.mlp.spec import MlpDecoder
+from dvda.codecs.params import StreamParameters
+from dvda.config import DecodeConfig
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
+from dvda.utils.profiling import global_timer
+from dvda.utils.wav import pack_samples_le, wave_header
 
 pytestmark = pytest.mark.skipif(not host.available(),
                                 reason="native host library unavailable")
@@ -121,7 +121,7 @@ def test_reconstruct_frame_cut():
     stream = synth_mlp_stream(cfg)
     parse = host.parse_mlp_stream(stream)
     assert parse.status == 0
-    from dvda_tpu.codecs.mlp.native_engine import _wave_perm
+    from dvda.codecs.mlp.native_engine import _wave_perm
     perm = _wave_perm(parse, 6)
     full = parse.reconstruct(parse.F, 6, 0, perm)
     for k in (1, 7, parse.F):
@@ -205,7 +205,7 @@ def test_host_complete_bail_falls_back(tmp_path, caplog):
     stream[40] ^= 0x5A  # frame 0 CRC-dropped; frame 1 lacks a restart
     stream = bytes(stream)
     params = stream_params(cfg)
-    with caplog.at_level(logging.WARNING, logger="dvda_tpu"):
+    with caplog.at_level(logging.WARNING, logger="dvda"):
         out = decode_native(stream, np.zeros(0, np.int64), len(stream),
                             params, config=HC)
     assert out is None  # track.py then falls back to the Python engines
@@ -222,25 +222,25 @@ def test_resolved_host_complete_auto(monkeypatch):
     and a slow-link mock selects host-complete, regardless of what the
     platform is called; a failed probe (no device) falls back to
     host-complete; an explicit pin always wins."""
-    from dvda_tpu import config as cfgmod
+    from dvda import config as cfgmod
 
     assert DecodeConfig(host_complete=True).resolved_host_complete()
     assert not DecodeConfig(host_complete=False,
                             use_device=False).resolved_host_complete()
     assert DecodeConfig(use_device=False).resolved_host_complete()
     # fast link (PCIe-class) -> device pipeline, whatever the platform
-    monkeypatch.setenv("DVDA_TPU_LINK_MBPS", "16000")
+    monkeypatch.setenv("DVDA_LINK_MBPS", "16000")
     assert not DecodeConfig().resolved_host_complete()
     # slow link (relay-class) -> host-complete, whatever the platform
-    monkeypatch.setenv("DVDA_TPU_LINK_MBPS", "40")
+    monkeypatch.setenv("DVDA_LINK_MBPS", "40")
     assert DecodeConfig().resolved_host_complete()
     assert not DecodeConfig(host_complete=False).resolved_host_complete()
     # exactly at the threshold counts as fast (strict <)
-    monkeypatch.setenv("DVDA_TPU_LINK_MBPS",
+    monkeypatch.setenv("DVDA_LINK_MBPS",
                        str(cfgmod._LINK_THRESHOLD_MBPS))
     assert not DecodeConfig().resolved_host_complete()
     # probe failure (no usable device backend) -> host path always works
-    monkeypatch.delenv("DVDA_TPU_LINK_MBPS")
+    monkeypatch.delenv("DVDA_LINK_MBPS")
     monkeypatch.setattr(cfgmod, "measured_link_MBps", lambda: None)
     assert DecodeConfig().resolved_host_complete()
 
@@ -249,9 +249,9 @@ def test_measured_link_probe_real_backend(monkeypatch):
     """The probe itself returns a sane figure on the session's default
     backend (CPU in tests: host-local memcpy, far above the threshold)
     and caches per process."""
-    from dvda_tpu import config as cfgmod
+    from dvda import config as cfgmod
 
-    monkeypatch.delenv("DVDA_TPU_LINK_MBPS", raising=False)
+    monkeypatch.delenv("DVDA_LINK_MBPS", raising=False)
     cfgmod._link_probe_cache.clear()
     mbps = cfgmod.measured_link_MBps()
     assert mbps is not None and mbps > cfgmod._LINK_THRESHOLD_MBPS
@@ -376,8 +376,8 @@ def test_arena_pool_disabled_still_decodes():
 import sys
 sys.path.insert(0, {repo!r})
 import numpy as np
-from dvda_tpu import host
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda import host
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
 cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                      n_frames=12, seed=5)
 stream = synth_mlp_stream(cfg)

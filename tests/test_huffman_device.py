@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dvda_tpu import host
-from dvda_tpu.codecs.mlp.codebooks import peek_lut
-from dvda_tpu.ops.huffman_decode import (
+from dvda import host
+from dvda.codecs.mlp.codebooks import peek_lut
+from dvda.ops.huffman_decode import (
     decode_residuals_device,
     decode_residuals_numpy,
 )
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
 
 pytestmark = pytest.mark.skipif(not host.available(),
                                 reason="native host library unavailable")
@@ -66,7 +66,7 @@ def test_kernel_matches_numpy_and_host(assign, nsub, split):
         else:
             bp = bp[:, None]
             k = S0
-        from dvda_tpu.codecs.mlp.native_engine import _window_rows
+        from dvda.codecs.mlp.native_engine import _window_rows
 
         NW = _window_rows(sub["sub_span_max"])
         wpad = np.zeros(-len(words) % NW + NW, np.uint32)
@@ -107,11 +107,11 @@ def test_device_huffman_pipeline_bit_exact():
     """Full decode with device_huffman: the uniform pipeline re-decodes
     residuals + bypassed LSBs on device and must match the spec decoder
     bit-exactly (incl. rematrix bypass add)."""
-    from dvda_tpu.codecs.mlp.native_engine import decode_native
-    from dvda_tpu.codecs.mlp.spec import MlpDecoder
-    from dvda_tpu.codecs.params import StreamParameters
-    from dvda_tpu.config import DecodeConfig
-    from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE
+    from dvda.codecs.mlp.native_engine import decode_native
+    from dvda.codecs.mlp.spec import MlpDecoder
+    from dvda.codecs.params import StreamParameters
+    from dvda.config import DecodeConfig
+    from dvda.testutil.synth import BPS_CODE, RATE_CODE
 
     for assign, nsub, nfr in [(17, 2, 48), (1, 1, 32), (17, 2, 1100)]:
         cfg = MlpSynthConfig(channel_assignment=assign,
@@ -120,7 +120,7 @@ def test_device_huffman_pipeline_bit_exact():
                              fir_across_restart=False,
                              params_update_prob=0.0)
         stream = synth_mlp_stream(cfg)
-        from dvda_tpu.codecs.params import StreamParameters as SP
+        from dvda.codecs.params import StreamParameters as SP
 
         params = SP(BPS_CODE[cfg.bits_per_sample], 0xF,
                     RATE_CODE[cfg.sample_rate], 0xF, assign)
@@ -140,11 +140,11 @@ def test_device_huffman_fixed_rate_blocks_bit_exact(choices):
     affine); mixed (0, 2) streams exercise the constant-gap folding
     around the remaining coded channels.  Both must stay bit-exact vs
     the spec decoder through the device-Huffman pipeline."""
-    from dvda_tpu.codecs.mlp.native_engine import decode_native
-    from dvda_tpu.codecs.mlp.spec import MlpDecoder
-    from dvda_tpu.config import DecodeConfig
-    from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE
-    from dvda_tpu.codecs.params import StreamParameters as SP
+    from dvda.codecs.mlp.native_engine import decode_native
+    from dvda.codecs.mlp.spec import MlpDecoder
+    from dvda.config import DecodeConfig
+    from dvda.testutil.synth import BPS_CODE, RATE_CODE
+    from dvda.codecs.params import StreamParameters as SP
 
     cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          n_frames=48, restart_every=2, major_sync_every=2,
@@ -182,12 +182,12 @@ def test_device_huffman_fixed_rate_blocks_bit_exact(choices):
 def test_device_huffman_nonuniform_falls_back():
     """Non-uniform streams under device_huffman re-parse in value mode and
     still decode bit-exactly through the general path."""
-    from dvda_tpu.codecs.mlp.native_engine import decode_native
-    from dvda_tpu.codecs.mlp.spec import MlpDecoder
-    from dvda_tpu.config import DecodeConfig
-    from dvda_tpu.testutil.mlp_synth import synth_two_section_stream
-    from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE
-    from dvda_tpu.codecs.params import StreamParameters as SP
+    from dvda.codecs.mlp.native_engine import decode_native
+    from dvda.codecs.mlp.spec import MlpDecoder
+    from dvda.config import DecodeConfig
+    from dvda.testutil.mlp_synth import synth_two_section_stream
+    from dvda.testutil.synth import BPS_CODE, RATE_CODE
+    from dvda.codecs.params import StreamParameters as SP
 
     stream, cfg = synth_two_section_stream()
     params = SP(BPS_CODE[cfg.bits_per_sample], 0xF,
@@ -206,7 +206,7 @@ def test_codebook_arith_decode_matches_luts_exhaustively():
     codes excluded — the host parser rejects those streams)."""
     import jax.numpy as jnp
 
-    from dvda_tpu.ops.huffman_decode import codebook_arith_decode
+    from dvda.ops.huffman_decode import codebook_arith_decode
 
     p = jnp.arange(512, dtype=jnp.int32)
     for cb in (1, 2, 3):
@@ -224,12 +224,12 @@ def test_device_huffman_multi_section_pipelined():
     under device_huffman decodes through the SECTIONED pipelined path —
     exercising the per-section sub_bitpos offset carry — bit-exactly vs
     the spec decoder."""
-    from dvda_tpu.codecs.mlp import native_engine as ne
-    from dvda_tpu.codecs.mlp.native_engine import decode_native
-    from dvda_tpu.codecs.mlp.spec import MlpDecoder
-    from dvda_tpu.config import DecodeConfig
-    from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE
-    from dvda_tpu.codecs.params import StreamParameters as SP
+    from dvda.codecs.mlp import native_engine as ne
+    from dvda.codecs.mlp.native_engine import decode_native
+    from dvda.codecs.mlp.spec import MlpDecoder
+    from dvda.config import DecodeConfig
+    from dvda.testutil.synth import BPS_CODE, RATE_CODE
+    from dvda.codecs.params import StreamParameters as SP
 
     base = dict(channel_assignment=17, substream_count=2, sample_rate=48000,
                 bits_per_sample=24, restart_every=2, major_sync_every=2,
@@ -293,7 +293,7 @@ def test_kernel_worst_case_39_bit_symbols():
         }
         res_np, byp_np = decode_residuals_numpy(stream, sub, vals, lens)
 
-        from dvda_tpu.codecs.mlp.native_engine import _window_rows
+        from dvda.codecs.mlp.native_engine import _window_rows
 
         span = max(r[1] - r[0] for r in sub_rel) + 45 * k  # generous
         NW = _window_rows(span)

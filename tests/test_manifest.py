@@ -8,10 +8,10 @@ one — asserted equal to slices of the full decode."""
 import numpy as np
 import pytest
 
-from dvda_tpu import host
-from dvda_tpu.api import DVDA
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import MlpTrackSpec, build_disc
+from dvda import host
+from dvda.api import DVDA
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import MlpTrackSpec, build_disc
 
 pytestmark = pytest.mark.skipif(not host.available(),
                                 reason="native host library unavailable")
@@ -77,7 +77,7 @@ def test_fir_coupling_blocks_resume(tmp_path):
 
 
 def test_pcm_track_has_no_manifest(tmp_path):
-    from dvda_tpu.testutil.synth import PcmTrackSpec
+    from dvda.testutil.synth import PcmTrackSpec
 
     layout = build_disc(str(tmp_path / "AUDIO_TS"),
                         [[PcmTrackSpec(pcm_frames=960, seed=1)]])
@@ -92,7 +92,7 @@ def test_read_range_host_complete_resumes(tmp_path):
     """Under the host-complete config (no device), read_range still takes
     the manifest-resume native path — not a full decode + slice — and
     matches the full decode."""
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     track, cfg = _disc(tmp_path, fir_across_restart=False,
                        params_update_prob=0.0)
@@ -112,7 +112,7 @@ def test_iter_packed_segments_match_batch(tmp_path):
     """iter_packed streams manifest-aligned segments whose concatenation
     equals read_all_packed, with more than one segment, under both
     executors."""
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     track, cfg = _disc(tmp_path, fir_across_restart=False,
                        params_update_prob=0.0)
@@ -140,7 +140,7 @@ def test_iter_packed_falls_back_to_single_chunk(tmp_path):
 def test_cli_stream_flag_byte_identical(tmp_path):
     """dvda2wav --stream writes byte-identical WAVs via the segment
     iterator (placeholder header rewritten after the single pass)."""
-    from dvda_tpu.cli.dvda2wav import main as dvda2wav_main
+    from dvda.cli.dvda2wav import main as dvda2wav_main
 
     _disc(tmp_path, fir_across_restart=False, params_update_prob=0.0)
     a = tmp_path / "batch"
@@ -158,8 +158,8 @@ def test_cli_stream_flag_byte_identical(tmp_path):
 def test_iter_packed_segment_bail_uses_spec_decoder(tmp_path, monkeypatch):
     """A per-segment native-decode bail falls back to the pure-Python
     spec decoder for that segment only — the stream stays byte-exact."""
-    import dvda_tpu.codecs.mlp.native_engine as ne
-    from dvda_tpu.config import DecodeConfig
+    import dvda.codecs.mlp.native_engine as ne
+    from dvda.config import DecodeConfig
 
     track, cfg = _disc(tmp_path, fir_across_restart=False,
                        params_update_prob=0.0)
@@ -194,7 +194,7 @@ def test_segment_backed_pull_reads(tmp_path):
     per = cfg.frames_per_mlp_frame
     r = track.open_reader(use_device=True)
     # force small segments so boundaries are crossed
-    from dvda_tpu.codecs.mlp.track import open_mlp_segment_reader
+    from dvda.codecs.mlp.track import open_mlp_segment_reader
 
     r._seg_reader = open_mlp_segment_reader(
         r.aob, r.track.span, r.parameters, 8 * per, config=r.config)

@@ -4,20 +4,20 @@ end-to-end WAV byte parity vs the reference dvda2wav oracle."""
 import numpy as np
 import pytest
 
-from dvda_tpu.api import DVDA
-from dvda_tpu.bitstream import BitReader
-from dvda_tpu.codecs.mlp.codebooks import (
+from dvda.api import DVDA
+from dvda.bitstream import BitReader
+from dvda.codecs.mlp.codebooks import (
     CODEBOOKS,
     decode_tree,
     encode_map,
     peek_lut,
 )
-from dvda_tpu.codecs.mlp.probe import find_major_sync
-from dvda_tpu.codecs.mlp.spec import MlpDecoder
-from dvda_tpu.codecs.params import StreamParameters
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
-from dvda_tpu.utils.wav import pack_samples_le, wave_header
+from dvda.codecs.mlp.probe import find_major_sync
+from dvda.codecs.mlp.spec import MlpDecoder
+from dvda.codecs.params import StreamParameters
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
+from dvda.utils.wav import pack_samples_le, wave_header
 
 
 def stream_params(cfg: MlpSynthConfig) -> StreamParameters:
@@ -195,7 +195,7 @@ def test_mlp_multitrack_parity(tmp_path, ref_oracle):
 
 
 def test_mixed_pcm_mlp_disc(tmp_path, ref_oracle):
-    from dvda_tpu.testutil.synth import PcmTrackSpec
+    from dvda.testutil.synth import PcmTrackSpec
 
     mlp = MlpSynthConfig(channel_assignment=1, n_frames=24, seed=5,
                          bits_per_sample=16, sample_rate=48000)
@@ -220,7 +220,7 @@ def test_mixed_pcm_mlp_disc(tmp_path, ref_oracle):
 
 
 def test_generic_codebook_compiler():
-    from dvda_tpu.codecs.mlp.codebooks import compile_entries
+    from dvda.codecs.mlp.codebooks import compile_entries
 
     vals, lens = compile_entries([("0", 5), ("10", 6), ("11", None)])
     assert vals[0b00] == 5 and lens[0b00] == 1
@@ -236,7 +236,7 @@ def test_load_reference_codebook_json(tmp_path):
     import json
     import os
 
-    from dvda_tpu.codecs.mlp.codebooks import (
+    from dvda.codecs.mlp.codebooks import (
         compile_entries,
         load_codebook_json,
         peek_lut,
@@ -255,7 +255,7 @@ def test_load_reference_codebook_json(tmp_path):
 def test_build_codebook_from_frequencies():
     """Runtime frequency-list Huffman building (reference huffman.c:262-353
     analog): canonical, prefix-free, optimal-length, round-trips."""
-    from dvda_tpu.codecs.mlp.codebooks import build_codebook, compile_entries
+    from dvda.codecs.mlp.codebooks import build_codebook, compile_entries
 
     freqs = {0: 45, 1: 13, 2: 12, 3: 16, 4: 9, 5: 5}
     entries = build_codebook(freqs)
@@ -279,7 +279,7 @@ def test_build_codebook_from_frequencies():
 def test_bitreader_bigint_fields():
     """>64-bit field reads (reference mini-gmp read_bigint analog,
     bitstream.h:176-186) — Python ints are arbitrary precision."""
-    from dvda_tpu.bitstream import BitReader, BitWriter
+    from dvda.bitstream import BitReader, BitWriter
 
     big = (1 << 150) - 0xDEADBEEF
     w = BitWriter()

@@ -4,14 +4,14 @@ device-path parity vs the reference oracle."""
 import numpy as np
 import pytest
 
-from dvda_tpu.api import DVDA
-from dvda_tpu.codecs.mlp.engine import BatchedMlpDecoder
-from dvda_tpu.codecs.mlp.spec import MlpDecoder
-from dvda_tpu.codecs.params import StreamParameters
-from dvda_tpu.ops.lfsr import lfsr_sequence, noise_pair
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
-from dvda_tpu.utils.wav import pack_samples_le, wave_header
+from dvda.api import DVDA
+from dvda.codecs.mlp.engine import BatchedMlpDecoder
+from dvda.codecs.mlp.spec import MlpDecoder
+from dvda.codecs.params import StreamParameters
+from dvda.ops.lfsr import lfsr_sequence, noise_pair
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
+from dvda.utils.wav import pack_samples_le, wave_header
 
 
 def stream_params(cfg):

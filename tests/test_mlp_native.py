@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from dvda_tpu import host
-from dvda_tpu.api import DVDA
-from dvda_tpu.codecs.mlp.native_engine import decode_native, _frame_cut
-from dvda_tpu.codecs.mlp.spec import MlpDecoder
-from dvda_tpu.codecs.params import StreamParameters
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
-from dvda_tpu.utils.wav import pack_samples_le, wave_header
+from dvda import host
+from dvda.api import DVDA
+from dvda.codecs.mlp.native_engine import decode_native, _frame_cut
+from dvda.codecs.mlp.spec import MlpDecoder
+from dvda.codecs.params import StreamParameters
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import BPS_CODE, RATE_CODE, MlpTrackSpec, build_disc
+from dvda.utils.wav import pack_samples_le, wave_header
 
 pytestmark = pytest.mark.skipif(not host.available(),
                                 reason="native host library unavailable")
@@ -152,7 +152,7 @@ def test_read_all_packed_parity(tmp_path):
 
 
 def test_multi_device_chunk_round_robin():
-    """DVDA_TPU_MULTI_DEVICE=1 round-robins chain chunks over all local
+    """DVDA_MULTI_DEVICE=1 round-robins chain chunks over all local
     devices (8 virtual CPU devices under conftest) — bit-equal output."""
     import os
 
@@ -167,12 +167,12 @@ def test_multi_device_chunk_round_robin():
     stream = synth_mlp_stream(cfg)
     params = stream_params(cfg)
     single = decode_native(stream, np.zeros(0, np.int64), len(stream), params)
-    os.environ["DVDA_TPU_MULTI_DEVICE"] = "1"
+    os.environ["DVDA_MULTI_DEVICE"] = "1"
     try:
         multi = decode_native(stream, np.zeros(0, np.int64), len(stream),
                               params)
     finally:
-        del os.environ["DVDA_TPU_MULTI_DEVICE"]
+        del os.environ["DVDA_MULTI_DEVICE"]
     assert np.array_equal(single, multi)
 
 
@@ -238,7 +238,7 @@ def test_pipelined_packet_boundary_cut():
 def test_pipelined_nonuniform_bit_exact():
     """A stream whose block size changes mid-way decodes bit-exactly
     (handled by the sectioned pipelined driver since round 2)."""
-    from dvda_tpu.testutil.mlp_synth import synth_two_section_stream
+    from dvda.testutil.mlp_synth import synth_two_section_stream
 
     stream, cfg = synth_two_section_stream()
     params = stream_params(cfg)
@@ -252,7 +252,7 @@ def test_pipelined_nonuniform_bit_exact():
 def test_geometry_churn_falls_back_bit_exact():
     """More than 8 geometry changes abandons the sectioned driver (the
     gather path handles such streams) — output stays bit-exact."""
-    from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+    from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
 
     base = dict(channel_assignment=17, substream_count=2, sample_rate=48000,
                 bits_per_sample=24, fir_across_restart=False,
@@ -275,7 +275,7 @@ def test_skip_values_tables_reconstruct_residuals():
     """skip-values parse (device-Huffman mode) emits per-block decode
     tables; re-decoding the raw bitstream with them must reproduce the
     normal parse's residual values and bypassed-LSB bits exactly."""
-    from dvda_tpu.codecs.mlp.codebooks import peek_lut
+    from dvda.codecs.mlp.codebooks import peek_lut
 
     cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          n_frames=24, seed=3)
@@ -349,8 +349,8 @@ def test_sectioned_pipeline_piecewise_uniform():
     """Piecewise-uniform streams decode through the sectioned pipelined
     driver (no gather-path fallback): block-size changes, restart-cadence
     changes and a partial tail chain each open a new uniform section."""
-    from dvda_tpu.codecs.mlp import native_engine as ne
-    from dvda_tpu.testutil.mlp_synth import MlpSynthConfig
+    from dvda.codecs.mlp import native_engine as ne
+    from dvda.testutil.mlp_synth import MlpSynthConfig
 
     base = dict(channel_assignment=17, substream_count=2, sample_rate=48000,
                 bits_per_sample=24, fir_across_restart=False,
@@ -367,7 +367,7 @@ def test_sectioned_pipeline_piecewise_uniform():
                        n_frames=12, restart_every=4, major_sync_every=4,
                        **base),
     ]
-    from dvda_tpu.testutil.mlp_synth import synth_mlp_stream as synth
+    from dvda.testutil.mlp_synth import synth_mlp_stream as synth
 
     stream = b"".join(synth(c) for c in cfgs)
     params = stream_params(cfgs[0])
@@ -395,7 +395,7 @@ def test_chunk_chains_invariance():
     """Decode is bit-identical for any chunk size (DecodeConfig.chunk_chains),
     including sizes that don't divide the chain count, and the parser's
     param_update flag routes parameter-constant chains to per-chain rows."""
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          n_frames=300, restart_every=2, major_sync_every=2,
@@ -594,7 +594,7 @@ def test_mt_parse_incremental_stepping():
 
 
 def test_decode_native_parse_threads_bit_exact():
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          n_frames=600, seed=7, major_sync_every=8,
@@ -646,7 +646,7 @@ def test_native_pack_matches_numpy_pack(devhuff, monkeypatch):
     """mp_pack (C++ arena assembly) produces byte-identical arenas and an
     identical static spec to the numpy _ArenaBuilder path, in both
     standard and device-Huffman modes."""
-    from dvda_tpu.codecs.mlp import native_engine as ne
+    from dvda.codecs.mlp import native_engine as ne
 
     cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          n_frames=40, restart_every=4, major_sync_every=4,
@@ -676,9 +676,9 @@ def test_native_pack_matches_numpy_pack(devhuff, monkeypatch):
 
 
 def test_native_filter_unroll_bit_equal():
-    """DecodeConfig.filter_unroll (DVDA_TPU_FILTER_UNROLL) trades compile
+    """DecodeConfig.filter_unroll (DVDA_FILTER_UNROLL) trades compile
     time for chunk throughput; output must stay bit-identical."""
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          n_frames=24, seed=5)
@@ -696,7 +696,7 @@ def test_mp_pack_rejects_undersized_arena():
     """mp_pack must bounds-check DESTINATION writes: an arena smaller
     than the instruction list assumes is a loud error, never heap
     corruption (review r3)."""
-    from dvda_tpu import host
+    from dvda import host
 
     cfg = MlpSynthConfig(channel_assignment=1, n_frames=4, seed=3)
     stream = synth_mlp_stream(cfg)
@@ -734,7 +734,7 @@ def test_narrow_d2h_parity_quiet_and_loud(devhuff):
     narrow_d2h=False decode and to the sequential spec."""
     from dataclasses import replace
 
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     base = DecodeConfig.from_env()
     seen = set()
@@ -769,7 +769,7 @@ def test_narrow_d2h_parity_quiet_and_loud(devhuff):
 def test_host_widen12_matches_numpy():
     """mp_widen12 (the 12-bit-tier drain widen) is byte-exact vs the
     numpy formula, including sign extension at the 12-bit boundary."""
-    from dvda_tpu import host
+    from dvda import host
 
     if not host.available():
         pytest.skip("native host library unavailable")
@@ -801,7 +801,7 @@ def test_narrow_poll_semantics():
     reruns through the 16-bit program and moves the track to tier 16; a
     full overflow reruns wide and turns narrow off; an unready chunk is
     left alone by nonblocking polls; once checked, later polls no-op."""
-    from dvda_tpu.codecs.mlp.native_engine import _narrow_poll
+    from dvda.codecs.mlp.native_engine import _narrow_poll
 
     class FakeDev:
         """Array-convertible stand-in for a narrow+flag device buffer."""
@@ -879,7 +879,7 @@ def test_bail_reason_surfaced_and_logged(caplog):
     assert parse.bail_reason == 2  # no restart header at stream start
     assert "restart" in host.bail_reason_text(parse.bail_reason)
 
-    with caplog.at_level(logging.WARNING, logger="dvda_tpu"):
+    with caplog.at_level(logging.WARNING, logger="dvda"):
         out = decode_native(stream, np.zeros(0, np.int64), len(stream),
                             stream_params(cfg))
     assert out is None  # callers fall back to the Python engines
@@ -892,7 +892,7 @@ def test_host_widen24_matches_numpy():
     """mp_widen24 (the narrow-d2h drain's int16 -> 24-bit WAV widen) is
     byte-exact vs the numpy formula, including the scalar tail for
     n % 4 != 0 and sign extension of negative highs."""
-    from dvda_tpu import host
+    from dvda import host
 
     if not host.available():
         pytest.skip("native host library unavailable")
@@ -918,7 +918,7 @@ def test_drain_thread_differential(devhuff):
     stream."""
     from dataclasses import replace
 
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     base = replace(DecodeConfig.from_env(), chunk_chains=2,
                    device_huffman=devhuff)
@@ -1040,8 +1040,8 @@ def test_paired_parse_differential_subprocess():
 import json, sys
 import numpy as np
 sys.path.insert(0, %r)
-from dvda_tpu import host
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda import host
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
 
 cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                      n_frames=48, seed=21, params_update_prob=0.2)
@@ -1076,7 +1076,7 @@ def test_frame_pair_skip_parse_engages_and_aborts():
     mid-frame parameter updates, still finishing clean.  Output equality
     with the pair-disabled driver is pinned separately by the native-vs-
     spec and devhuff tests, which run with the pair enabled by default."""
-    from dvda_tpu.config import DecodeConfig
+    from dvda.config import DecodeConfig
 
     split = DecodeConfig().resolved_huffman_split()
 
@@ -1119,7 +1119,7 @@ def test_corrupt_frame_invalidates_emit_cache():
     (observed as shape/value divergence from the spec decoder at corrupt
     bytes 61/466 of this exact stream before the rollback_frame
     invalidation)."""
-    from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE
+    from dvda.testutil.synth import BPS_CODE, RATE_CODE
 
     cfg = MlpSynthConfig(channel_assignment=1, substream_count=1,
                          n_frames=16, seed=5, major_sync_every=8,

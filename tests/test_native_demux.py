@@ -8,12 +8,12 @@ import tempfile
 import numpy as np
 import pytest
 
-from dvda_tpu import host
-from dvda_tpu.api import DVDA
-from dvda_tpu.codecs.mlp import track as trackmod
-from dvda_tpu.container.aob import AOBReader
-from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-from dvda_tpu.testutil.synth import MlpTrackSpec, PcmTrackSpec, build_disc
+from dvda import host
+from dvda.api import DVDA
+from dvda.codecs.mlp import track as trackmod
+from dvda.container.aob import AOBReader
+from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+from dvda.testutil.synth import MlpTrackSpec, PcmTrackSpec, build_disc
 
 pytestmark = pytest.mark.skipif(not host.available(),
                                 reason="native host library unavailable")
@@ -27,11 +27,11 @@ def _mlp_spec(cfg):
 
 
 def _python_assemble(path, tr):
-    os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"] = "1"
+    os.environ["DVDA_DISABLE_NATIVE_DEMUX"] = "1"
     try:
         return trackmod._assemble_stream(AOBReader(path, 1), tr)
     finally:
-        del os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"]
+        del os.environ["DVDA_DISABLE_NATIVE_DEMUX"]
 
 
 def _mlp_tracks(path):
@@ -114,11 +114,11 @@ def test_native_demux_feeds_decoder(tmp_path):
     layout = build_disc(str(tmp_path / "AUDIO_TS"), [[_mlp_spec(cfg)]])
     (tr,) = list(_mlp_tracks(layout.path))
     a = tr.open_reader(use_device=True).read_all()
-    os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"] = "1"
+    os.environ["DVDA_DISABLE_NATIVE_DEMUX"] = "1"
     try:
         b = tr.open_reader(use_device=True).read_all()
     finally:
-        del os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"]
+        del os.environ["DVDA_DISABLE_NATIVE_DEMUX"]
     assert np.array_equal(a, b)
 
 
@@ -135,11 +135,11 @@ def test_pcm_native_walk_matches_python(tmp_path, bps, rate, ch_assign,
                         aob_split_sectors=5)
     track = DVDA(layout.path).open_titleset(1).open_title(1).open_track(1)
     a = track.open_reader(use_device=False).read_all()
-    os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"] = "1"
+    os.environ["DVDA_DISABLE_NATIVE_DEMUX"] = "1"
     try:
         b = track.open_reader(use_device=False).read_all()
     finally:
-        del os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"]
+        del os.environ["DVDA_DISABLE_NATIVE_DEMUX"]
     assert np.array_equal(a, b)
     assert a.shape[0] > 0
 
@@ -154,11 +154,11 @@ def test_pcm_native_walk_corrupt_matches_python(tmp_path):
     data[(track.first_sector + 2) * 2048 + 1] ^= 0xFF
     open(path, "wb").write(bytes(data))
     a = track.open_reader(use_device=False).read_all()
-    os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"] = "1"
+    os.environ["DVDA_DISABLE_NATIVE_DEMUX"] = "1"
     try:
         b = track.open_reader(use_device=False).read_all()
     finally:
-        del os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"]
+        del os.environ["DVDA_DISABLE_NATIVE_DEMUX"]
     assert np.array_equal(a, b)
 
 
@@ -183,10 +183,10 @@ def test_fuzz_corruption_equality(tmp_path):
         open(os.path.join(base, f), "wb").write(bytes(data))
         _assert_equal(base, mlp_tr)
         a = pcm_tr.open_reader(use_device=False).read_all()
-        os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"] = "1"
+        os.environ["DVDA_DISABLE_NATIVE_DEMUX"] = "1"
         try:
             b = pcm_tr.open_reader(use_device=False).read_all()
         finally:
-            del os.environ["DVDA_TPU_DISABLE_NATIVE_DEMUX"]
+            del os.environ["DVDA_DISABLE_NATIVE_DEMUX"]
         assert np.array_equal(a, b), trial
         open(os.path.join(base, f), "wb").write(clean[f])

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dvda_tpu.ops.mlp_filter import mlp_filter_blocks
-from dvda_tpu.ops.pallas_filter import mlp_filter_blocks_pallas
+from dvda.ops.mlp_filter import mlp_filter_blocks
+from dvda.ops.pallas_filter import mlp_filter_blocks_pallas
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -55,12 +55,12 @@ def test_pipeline_with_pallas_filter_bit_exact():
     Pallas kernel (interpreted off-TPU) with identical output."""
     import numpy as np
 
-    from dvda_tpu.codecs.mlp.native_engine import decode_native
-    from dvda_tpu.config import DecodeConfig
-    from dvda_tpu.codecs.params import StreamParameters
-    from dvda_tpu.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
-    from dvda_tpu.testutil.synth import BPS_CODE, RATE_CODE
-    from dvda_tpu import host
+    from dvda.codecs.mlp.native_engine import decode_native
+    from dvda.config import DecodeConfig
+    from dvda.codecs.params import StreamParameters
+    from dvda.testutil.mlp_synth import MlpSynthConfig, synth_mlp_stream
+    from dvda.testutil.synth import BPS_CODE, RATE_CODE
+    from dvda import host
 
     if not host.available():
         pytest.skip("native host library unavailable")

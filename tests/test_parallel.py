@@ -10,8 +10,8 @@ import jax
 import numpy as np
 import pytest
 
-from dvda_tpu.parallel.mesh import AXIS_CHANNEL, AXIS_DATA, make_mesh
-from dvda_tpu.parallel.step import (
+from dvda.parallel.mesh import AXIS_CHANNEL, AXIS_DATA, make_mesh
+from dvda.parallel.step import (
     batch_shardings,
     decode_step,
     example_batch,

@@ -4,16 +4,16 @@ algorithm, and end-to-end WAV byte parity vs the dvda2wav oracle."""
 import numpy as np
 import pytest
 
-from dvda_tpu.api import DVDA
-from dvda_tpu.codecs.pcm import (
+from dvda.api import DVDA
+from dvda.codecs.pcm import (
     AOB_BYTE_SWAP,
     chunk_size,
     decode_chunks_numpy,
     pcm_gather_indices,
 )
-from dvda_tpu.codecs.params import riff_wave_channel_mask
-from dvda_tpu.testutil.synth import PcmTrackSpec, build_disc
-from dvda_tpu.utils.wav import wave_header, pack_samples_le
+from dvda.codecs.params import riff_wave_channel_mask
+from dvda.testutil.synth import PcmTrackSpec, build_disc
+from dvda.utils.wav import wave_header, pack_samples_le
 
 
 def scalar_reference_decode(chunk: bytes, bits_per_sample: int, channels: int):
@@ -129,7 +129,7 @@ def test_read_all_packed_native_repack_parity(tmp_path, bits, assign):
     """The PCM packed fast path (native demux + mp_pcm_repack byte
     gather) equals pack_samples_le(read_all()) and returns its buffer
     without a copy (bytearray)."""
-    from dvda_tpu import host
+    from dvda import host
 
     if not host.available():
         pytest.skip("native host library unavailable")

@@ -4,10 +4,10 @@ through the public API."""
 import numpy as np
 import pytest
 
-from dvda_tpu.api import DVDA
-from dvda_tpu.codecs.pcm import chunk_size, decode_chunks_numpy
-from dvda_tpu.ops.pcm_unpack import decode_chunks_device
-from dvda_tpu.testutil.synth import PcmTrackSpec, build_disc
+from dvda.api import DVDA
+from dvda.codecs.pcm import chunk_size, decode_chunks_numpy
+from dvda.ops.pcm_unpack import decode_chunks_device
+from dvda.testutil.synth import PcmTrackSpec, build_disc
 
 
 @pytest.mark.parametrize("bits", [16, 24, 20])

@@ -4,7 +4,7 @@
 # Makefile generates headers into src/, so we copy the sources into the
 # gitignored .refbuild/ directory and build there.  The resulting binaries are
 # used by tests/ for golden-file parity only; nothing in .refbuild is part of
-# the dvda_tpu framework.
+# the dvda framework.
 set -e
 REPO="$(cd "$(dirname "$0")/.." && pwd)"
 REF=/root/reference

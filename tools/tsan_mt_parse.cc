@@ -5,7 +5,7 @@
 // a corrupted stream) so data races in the pool/merge machinery are
 // caught at test time rather than in production.  Run via
 // tools/tsan_mt_parse.sh, which synthesizes the input streams with
-// dvda_tpu.testutil and checks MT output equals the sequential parse.
+// dvda.testutil and checks MT output equals the sequential parse.
 //
 // Usage: tsan_mt_parse <stream-file> <threads> [corrupt_byte_index...]
 

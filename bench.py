@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Driver entry point: delegates to dvda.cli.bench (the packaged
+"""Benchmark entry point: delegates to dvda.cli.bench (the packaged
 benchmark).  Prints ONE JSON line with the headline metric."""
 
 import os
@@ -7,10 +7,6 @@ import sys
 
 _repo = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _repo)
-# repo-local persistent compilation cache: repeat bench runs (and the
-# driver's end-of-round run) skip the 20-80 s first-compiles
-os.environ.setdefault("DVDA_COMPILE_CACHE",
-                      os.path.join(_repo, ".jaxcache"))
 
 from dvda.cli.bench import main
 

@@ -1,7 +1,7 @@
-"""dvda — a TPU-native DVD-Audio decode framework.
+"""dvda — a DVD-Audio decode framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of libdvd-audio
-(reference: /root/reference): AUDIO_TS parsing, AOB sector I/O, MPEG-2
+A ground-up JAX/XLA rebuild of the capabilities of libdvd-audio:
+AUDIO_TS parsing, AOB sector I/O, MPEG-2
 program-stream demux, CPPM decryption, and the PCM and MLP (Meridian
 Lossless Packing) codecs — re-architected as a thin host planner feeding
 batched, vectorised device kernels.

@@ -3,7 +3,7 @@
 This is the L1 layer of the framework (reference analog:
 /root/reference/src/bitstream.{h,c}).  The reference implements a table-driven
 9-bit state machine with four I/O backends, a setjmp/longjmp error stack and a
-per-byte callback stack.  None of that survives the TPU-first redesign:
+per-byte callback stack.  None of that survives the batched redesign:
 
 * All parsing here is **host-side control flow** over in-memory ``bytes``
   buffers (sectors are read in bulk by the container layer), so a single

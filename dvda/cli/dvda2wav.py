@@ -3,7 +3,7 @@
 Reference analog: utils/dvda2wav.c (flags :67-76, extraction flow
 :240-350).  Same options, same output naming (``track-TT-NN.wav``), same
 status lines, and byte-identical WAV output (utils/wav.py); the decode
-underneath is the batched TPU pipeline instead of the scalar pull loop.
+underneath is the batched device pipeline instead of the scalar pull loop.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-d", "--dir", default=".", metavar="DIR",
                    help="output directory (default: current directory)")
     p.add_argument("--no-device", action="store_true",
-                   help="decode host-side only (skip the TPU pipeline)")
+                   help="decode host-side only (skip the device pipeline)")
     p.add_argument("--stream", action="store_true",
                    help="write in bounded-memory segments (MLP tracks "
                         "decode from manifest resume points instead of "

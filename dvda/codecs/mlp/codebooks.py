@@ -6,7 +6,7 @@ into reader-state jump tables (src/huffman.c:262-418, Makefile:108-115).
 
 The reference compiles codebooks into 0x200-entry tables keyed by its bit
 reader's 9-bit state machine.  The rebuild's decoders are not state
-machines, so the compiler here emits two TPU/vector-friendly forms instead:
+machines, so the compiler here emits two vector-friendly forms instead:
 
 * a **flat peek LUT**: all codes are ≤ 9 bits, so a 512-entry table keyed
   by the next 9 bits of the stream gives ``(value, code_length)`` in one

@@ -2,7 +2,7 @@
 
 This module is the framework's *executable specification* of MLP decode
 semantics, written for clarity and bit-exactness, not speed.  It is the
-correctness anchor: the batched/TPU engine (engine.py, ops/mlp_filter.py,
+correctness anchor: the batched device engine (engine.py, ops/mlp_filter.py,
 ops/rematrix.py) and the native host parser are all validated against it,
 and it is itself validated byte-for-byte against the reference decoder
 (golden tests vs dvda2wav).

@@ -6,7 +6,7 @@ channels); the reference undoes it one byte at a time through the
 ``AOB_BYTE_SWAP`` scatter tables (pcm.c:103-138) and then sign-extends
 little-endian 16/24-bit groups (SL16/SL24_char_to_int, pcm.c:171-193).
 
-TPU-first formulation: scatter tables are inverted once into **gather
+Batched formulation: scatter tables are inverted once into **gather
 indices** so a whole track's chunks decode as one vectorised
 ``take``+shift+mask expression over a ``[n_chunks, chunk_size]`` uint8
 batch — see :func:`pcm_gather_indices` (host/numpy reference here,

@@ -2,7 +2,7 @@
 chained ``ATS_XX_1.AOB`` … ``ATS_XX_9.AOB`` files of a titleset.
 
 Reference analog: src/aob.c (aob_reader_open :90, read :157, seek :181,
-tell :201).  Differences in the TPU-first rebuild:
+tell :201).  Differences in the batched rebuild:
 
 * The reference pulls one 2048-byte sector per fread and decrypts it inline
   (aob.c:157-175).  Batch decode wants bulk I/O, so the primary interface

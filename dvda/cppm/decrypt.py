@@ -188,7 +188,7 @@ class CppmDecryptor:
 
     def _decrypt_device(self, enc: np.ndarray, hi: np.ndarray,
                         lo: np.ndarray):
-        """TPU path: one scan over the whole batch (ops/c2_decrypt.py)."""
+        """Device path: one scan over the whole batch (ops/c2_decrypt.py)."""
         import jax.numpy as jnp
 
         from ..ops.c2_decrypt import dcbc_dec_device

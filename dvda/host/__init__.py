@@ -3,8 +3,10 @@
 The shared library (built from src/*.cc with g++, no external deps) holds
 the host-side hot paths: the MLP stream parser + Huffman residual decoder
 (src/mlp_parse.cc) and the CPPM C2 cipher (src/c2.cc).  The library is
-(re)built on demand at import time; when a toolchain is unavailable every
-entry point reports unavailable and callers fall back to the pure-Python
+built on first use into the gitignored ``build/`` directory, keyed by a
+hash of its sources, flags and host CPU (:func:`build_key`).  When it
+cannot be built, the compiler's message is logged at WARNING, every entry
+point reports unavailable, and callers fall back to the pure-Python
 implementations (which are the executable specification).
 
 ``parse_mlp_stream`` returns a :class:`NativeParse` exposing numpy views
@@ -23,8 +25,10 @@ of the parser's output arrays:
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
@@ -33,48 +37,89 @@ __all__ = ["available", "parse_mlp_stream", "parse_mlp_stream_begin",
            "c2_decrypt_sectors", "assemble_mlp_stream"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "libdvda_host.so")
+_BUILD_DIR = os.path.join(_DIR, "build")
 _SOURCES = [os.path.join(_DIR, "src", f)
             for f in ("mlp_parse.cc", "c2.cc", "demux.cc",
                       "pcm_repack.cc")]
+_CXXFLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread",
+             "-std=c++17"]
 
 _lib = None
 _load_error: str | None = None
 
 
-def _build() -> bool:
-    sources = [s for s in _SOURCES if os.path.exists(s)]
-    if not sources:
-        return False
+def _host_cpu() -> str:
+    """What ``-march=native`` compiles for: the CPU's model and feature
+    flags (one line each from /proc/cpuinfo), else the machine name."""
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-             "-std=c++17", "-o", _SO] + sources,
-            check=True, capture_output=True,
-        )
-        return True
-    except (subprocess.CalledProcessError, OSError):
-        return False
+        with open("/proc/cpuinfo") as fh:
+            lines = [ln for ln in fh
+                     if ln.startswith(("model name", "flags", "Features"))]
+        return "".join(sorted(set(lines)))
+    except OSError:
+        import platform
+
+        return platform.machine() + platform.processor()
 
 
-def _stale() -> bool:
-    if not os.path.exists(_SO):
-        return True
-    so_m = os.path.getmtime(_SO)
-    return any(os.path.exists(s) and os.path.getmtime(s) > so_m for s in _SOURCES)
+def build_key() -> str:
+    """Hash of the sources, the compiler flags and the host CPU.  The
+    library is cached under this key, so a library built from other
+    sources, with other flags or for another CPU is never loaded."""
+    h = hashlib.sha256()
+    for path in _SOURCES:
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    h.update("\0".join(_CXXFLAGS).encode())
+    h.update(_host_cpu().encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(_BUILD_DIR, f"libdvda_host-{build_key()}.so")
+
+
+def _build(so: str) -> str | None:
+    """Compile the library to ``so``; returns an error text on failure.
+    The output is written beside ``so`` and renamed into place, so
+    a concurrent build never loads a half-written file."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, *_SOURCES],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            return proc.stderr.strip() or f"g++ exited {proc.returncode}"
+        os.replace(tmp, so)
+        return None
+    except OSError as exc:
+        return str(exc)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _load():
     global _lib, _load_error
     if _lib is not None or _load_error is not None:
         return _lib
-    if _stale() and not _build():
-        _load_error = "native host library could not be built"
-        return None
+    so = library_path()
+    if not os.path.exists(so):
+        err = _build(so)
+        if err is not None:
+            from ..utils.log import logger
+
+            _load_error = f"native host library could not be built: {err}"
+            logger.warning("%s", _load_error)
+            return None
     try:
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
     except OSError as exc:
+        from ..utils.log import logger
+
         _load_error = str(exc)
+        logger.warning("native host library could not be loaded: %s", exc)
         return None
     c = ctypes
     lib.mlp_parse.restype = c.c_void_p
@@ -549,7 +594,7 @@ class IncrementalParse:
 
 #: bail-reason codes (mlp_parse.cc BailReason) → human-readable text; the
 #: native parser reports WHY it handed the stream back so the ~1000×
-#: pure-Python fallback cliff is diagnosable (VERDICT r3 #8)
+#: pure-Python fallback cliff is diagnosable
 BAIL_REASONS = {
     0: "no bail",
     1: "substream frame lengths disagree",

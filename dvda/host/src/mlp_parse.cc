@@ -1,5 +1,5 @@
 // Native MLP stream parser: bitstream walk + Huffman residual decode into
-// flat tensors for the TPU executor.
+// flat tensors for the device executor.
 //
 // This is the production host-side runtime for the MLP path (the Python
 // planner in codecs/mlp/engine.py is the readable specification and slow
@@ -336,8 +336,8 @@ static inline T* bump(rawvec<T>& v, size_t n) {
 
 // Bail-reason codes (Result::bail): why the native parser gave up and the
 // caller must fall back to the pure-Python decoder.  Surfaced through
-// mp_bail_reason so the ~1000x fallback cliff is diagnosable (VERDICT r3
-// #8); the Python binding maps codes to text (host/__init__.py).
+// mp_bail_reason so the ~1000x fallback cliff is diagnosable; the Python
+// binding maps codes to text (host/__init__.py).
 enum BailReason {
   kBailNone = 0,
   kBailSubstreamLengths = 1,   // substream frame lengths disagree
@@ -689,7 +689,7 @@ struct Parser {
     // repaired by reparsing [staged start, damaged end) sequentially —
     // the staged section's entry frame is a verified full state reset,
     // so that local reparse reproduces the sequential parse exactly
-    // without redoing the rest of the stream (VERDICT r3 #4)
+    // without redoing the rest of the stream
     std::unique_ptr<Parser> staged;
     size_t staged_idx = 0;  // last section index covered by `staged`
     size_t staged_lo = 0;   // first cut index of the staged byte range
@@ -759,7 +759,7 @@ struct Parser {
       // boundary, end of this section) sequentially in place of
       // (staged, w).  Every later section starts at its own full state
       // reset, so their MT results stay valid.  The repair is STAGED
-      // rather than merged (round 5, VERDICT r4 #7): if the NEXT
+      // rather than merged (round 5): if the NEXT
       // section's entry frame is also damaged, its repair reparses
       // [this repair's start, its end) — any number of damaged
       // sections each costs one local reparse of its neighborhood,
@@ -1419,7 +1419,7 @@ struct Parser {
     if (max_c < min_c || mmc < max_c) throw ParseError{};
     // bounds: channel arrays are sized kMaxChannels and matrix coeff rows
     // are read up to index mmc+2 (read_matrices) — reject corrupt streams
-    // whose 4-bit fields would index past them (advisor r2, medium)
+    // whose 4-bit fields would index past them
     if (max_c >= kMaxChannels || mmc >= kMaxChannels - 2) throw ParseError{};
     if (u.restart_seen && (min_c != u.min_ch || max_c != u.max_ch)) {
       out.status = 1;  // bail: channel range changes mid-stream
@@ -2758,7 +2758,7 @@ int64_t mp_blk_sub_bitpos_size(void* h, int s) { return int64_t(R(h).blk_sub_bit
 int32_t mp_sub_span_max(void* h, int s) { return R(h).sub_span_max[s]; }
 
 // ---------------------------------------------------------------------------
-// Native arena packing (VERDICT r2 #3): the device pipeline ships three
+// Native arena packing: the device pipeline ships three
 // typed arenas (int32/int16/int8) per chunk; assembling them in numpy cost
 // ~0.27 s of the contended host core per 30 s track.  mp_pack executes a
 // small instruction list against the parse result, writing (with dtype
@@ -2936,8 +2936,8 @@ void mp_widen24(const uint8_t* pairs, int64_t n, uint8_t* dst) {
   // 4 samples per iteration: one unaligned u64 load, three u32 stores
   // composed in registers (the naive 3-byte-stride byte loop does not
   // vectorise and ran at ~160 MB/s; this runs several× faster).  The
-  // register composition assumes a little-endian host (every real TPU
-  // host is); a BE build falls through to the byte-store tail loop.
+  // register composition assumes a little-endian host (every x86-64
+  // and aarch64 Linux host is); a BE build falls through to the byte-store tail loop.
   int64_t i = 0;
 #if !defined(__BYTE_ORDER__) || __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
   for (; i + 4 <= n; i += 4) {
@@ -3344,7 +3344,7 @@ inline int recon_frames(const Result& o, int64_t f0, int64_t f1, int64_t t0,
 // byte packing — entirely on the host, from the completed parse's flat
 // tensors.  This is the production executor when no accelerator is
 // attached or the device link is slower than host compute (e.g. a
-// tunneled TPU); the same parse feeds either executor and the output is
+// networked accelerator); the same parse feeds either executor and the output is
 // byte-identical (tests/test_host_complete.py).  Exact int32 semantics:
 // int64 accumulate, arithmetic shift, two's-complement truncation —
 // the same contract the device path reproduces via limb arithmetic.

@@ -1,10 +1,10 @@
-"""CPPM sector decryption on TPU — batched C2 D-CBC as a device kernel.
+"""CPPM sector decryption on the device — batched C2 D-CBC in plain JAX.
 
 Reference analog: the per-sector scalar loop cppm.c:531-566 (key chain)
 and c2_dcbc cppm.c:486-529.  The D-CBC chain is sequential over a
 sector's 240 words but independent across sectors, so a whole disc's
 encrypted sectors decrypt as one ``lax.scan`` of 240 steps with all
-sectors vectorised in lanes — pure uint32 VPU work.  The per-sector
+sectors vectorised in lanes — pure uint32 elementwise work.  The per-sector
 content-key derivation (four chained ``c2_g`` applications over sector
 header fields) is likewise vectorised.
 

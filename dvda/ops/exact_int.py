@@ -1,9 +1,10 @@
-"""Exact C-integer arithmetic on TPU via int32 limb decomposition.
+"""Exact C-integer arithmetic via int32 limb decomposition.
 
 The MLP hot loops accumulate products in C ``int64`` and then truncate to
 ``int32`` after an arithmetic shift (filter_channel mlp.c:1278-1300,
-rematrix_channels :1338-1355).  TPUs have no native 64-bit integer path, so
-the kernels here decompose each 32-bit operand into four 8-bit limbs:
+rematrix_channels :1338-1355).  JAX runs with 64-bit types off by default
+(``jax_enable_x64`` is process-global), so the kernels here stay in int32
+and decompose each 32-bit operand into four 8-bit limbs:
 
     v = b0 + b1·2^8 + b2·2^16 + b3·2^24      (b0..b2 unsigned, b3 signed)
 

@@ -8,10 +8,8 @@ bit offset; this kernel then re-decodes the values from the **raw
 bitstream** in parallel — each k-sample run is an independent lane, so
 only the ``k·J`` symbols inside a run decode sequentially (``lax.scan``).
 
-The round-2 kernel spent its whole budget on gathers: ~13.4 ns/element
-on v5e for `jnp.take` at these shapes, invariant to lane/step trade-offs
-(measured; the no-gather scan body costs ~0.2 ms).  This version removes
-every in-scan gather:
+The design removes every in-scan gather (an element gather per symbol
+would dominate the scan body):
 
 * **window fetch** — each lane's bit span is covered by two NW-word
   *aligned* rows of the chunk window (`words.reshape(-1, NW)`), fetched
@@ -79,7 +77,7 @@ def codebook_arith_decode(cb_is1, cb_is2, cb_is3, p):
     return val, nb
 
 
-@partial(jax.jit, static_argnums=(7, 8, 9, 10, 11, 12))
+@partial(jax.jit, static_argnums=(7, 8, 9, 10, 11))
 def decode_residuals_device(
     words,      # uint32 [W]      bitstream words, W a multiple of NW
                 # (whole-track shared buffer, or a per-chunk window)
@@ -100,12 +98,7 @@ def decode_residuals_device(
                 # and residuals return TIME-LEADING [NB0, S0, C*Bc]
                 # (filter-ready, channel-major lanes) via ONE permute
                 # whose minor dims are (C, Bc) — the [C, L, S0] epilogue
-                # materializes a minor-40 intermediate that costs ~1 ms
-                # per chunk (measured, tools/devhuff_ablate.py konly)
-    _ablate: str = "",  # measurement hook (tools/devhuff_ablate.py):
-                # comma-set of {nosel, noarith} stubbing scan stages to
-                # attribute device time.  NOT bit-exact — never set in
-                # production.
+                # would materialize a minor-40 intermediate
     word_base=None,  # int32 scalar: base WORD index of this chunk's bit
                 # positions inside ``words`` — lets one whole-track
                 # device buffer serve every chunk while bitpos stays
@@ -120,9 +113,8 @@ def decode_residuals_device(
     the ``k``-th bypassed-LSB symbol, bits ``k >= nbyp[lane]`` zeroed);
     the caller maps symbols to rematrix slots with per-lane shifts.
     Channel-major residuals + a packed bypass field keep **S0 as the
-    minor dimension everywhere** — the previous [L, S0, J] / [L, S0, 6]
-    epilogue ran at J/128 lane utilization and cost ~3 ms of the 8.4 ms
-    chunk (measured, tools/devhuff_ablate.py).
+    minor dimension everywhere** (an [L, S0, J] / [L, S0, 6] epilogue
+    would keep the narrow J axis minor).
 
     Per sample the scan runs ONE step with C slot bodies unrolled; the
     bypass burst (all ≤6 bypassed-LSB bits, read together from the
@@ -138,7 +130,6 @@ def decode_residuals_device(
     u32 = jnp.uint32
     LOG = NW.bit_length() - 1
     has_burst = J == C + 1
-    ablate = set(filter(None, _ablate.split(",")))
 
     # ---- per-lane aligned windows: two NW-word rows per sub-lane -------
     words2d = words.reshape(-1, NW)
@@ -151,8 +142,6 @@ def decode_residuals_device(
     local0 = flat_bp - (row << (5 + LOG))                   # [0, 2*NW*32)
 
     def sel(i):  # win[:, i] via a select tree (no gather); i int32 [Lp]
-        if "nosel" in ablate:  # ablation: fixed column, keeps dependency
-            return win[:, 0] ^ i.astype(u32)
         w = win
         for lev in reversed(range(LOG + 1)):
             half = 1 << lev
@@ -212,11 +201,8 @@ def decode_residuals_device(
                 adv0 = 0
 
             p9 = (hi >> u32(23)).astype(jnp.int32)
-            if "noarith" in ablate:  # ablation: constant-length decode
-                msb, nb = p9 & 7, (p9 & 3) + 1
-            else:
-                msb, nb = codebook_arith_decode(cb_r == 1, cb_r == 2,
-                                                cb_r == 3, p9)
+            msb, nb = codebook_arith_decode(cb_r == 1, cb_r == 2,
+                                            cb_r == 3, p9)
             use_cb = cb_r > 0
             nb = jnp.where(use_cb, nb, 0)
             msb = jnp.where(use_cb, msb, 0)

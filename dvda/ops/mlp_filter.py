@@ -1,7 +1,7 @@
 """Batched MLP FIR/IIR reconstruction filter — the ★hot kernel.
 
 Reference analog: filter_channel (mlp.c:1243-1306), a per-sample scalar
-loop.  TPU formulation: the recurrence is inherently sequential in time
+loop.  Device formulation: the recurrence is inherently sequential in time
 (the "FIR" taps read *previous outputs*, i.e. it is an AR filter with a
 floor nonlinearity, so no exact parallel scan exists), but it is
 embarrassingly parallel across **lanes** — (chain × channel) pairs — which
@@ -45,12 +45,12 @@ def _filter_core(residuals_tl, rc_fir, rc_iir, shift, quant, iir_reset,
     natural leading axis — no residual transposes inside.
 
     Inside the scan the 8-tap state/coefficient vectors are carried
-    TAPS-LEADING ([8, B]: taps on sublanes, lanes on the 128-lane axis),
-    so each tap dot reduces across sublanes at full lane width — the
-    [B, 8] form ran every product at 8/128 lane utilization (measured
-    1.76× slower for the whole scan at the production chunk shape).
-    External shapes stay [B, ..., 8]; the flips are one-time transposes
-    of the small parameter tensors."""
+    TAPS-LEADING ([8, B]: lanes minor), so each tap dot reduces over a
+    major axis at full lane width.  External shapes stay [B, ..., 8]; the
+    flips are one-time transposes of the small parameter tensors.
+
+    This is the plain reference for the GPU kernel (ops/triton_filter.py)
+    and the filter on every other backend."""
     NB, S, B = residuals_tl.shape
     pos = jnp.arange(S, dtype=jnp.int32)
 
@@ -72,12 +72,6 @@ def _filter_core(residuals_tl, rc_fir, rc_iir, shift, quant, iir_reset,
             return (jnp.where(v, nfs, fs), jnp.where(v, nis, is_)), value
 
         valid = pos[:, None] < blen[None, :]            # [S, B]
-        # NB: with the taps-leading state unroll=4 measures NEUTRAL
-        # on v5e (2.92 vs 2.94 ms/chunk full-pipeline; before the rework
-        # it bought ~9% by amortising per-step overhead) while still
-        # multiplying the per-geometry first compile — the default stays
-        # 1 and DecodeConfig.filter_unroll remains for shapes where the
-        # step overhead returns (docs/performance.md "device headroom").
         (fir_st, iir_st), out = jax.lax.scan(
             sample_step,
             (fir_st, iir_st),
@@ -118,8 +112,8 @@ def mlp_filter_blocks_tl(
     unroll: int = 1,  # static: sample-scan unroll (see _filter_core)
 ):
     """Time-leading entry: residuals and output stay [NB, S, B] (lanes on
-    the minor axis — the physically cheap layout on TPU), so neither the
-    producer nor this kernel pays a residual transpose."""
+    the minor axis), so neither the producer nor this filter pays a
+    residual transpose."""
     return _filter_core(residuals_tl, rc_fir, rc_iir, shift, quant,
                         iir_reset, iir_init, block_len,
                         fir_state0, iir_state0, unroll)

@@ -4,14 +4,12 @@ Reference analog: the scalar per-byte scatter loop in
 dvda_pcmdecoder_decode_packet (pcm.c:147-166) with the AOB_BYTE_SWAP tables
 (pcm.c:103-138) and SL16/SL24 sign extension (pcm.c:171-193).
 
-TPU formulation: the scatter tables are inverted host-side into per-config
-gather indices (codecs/pcm.pcm_gather_indices); the kernel is then a single
-fused gather + shift + sign-extend over a ``[n_chunks, chunk_size]`` uint8
-batch — pure VPU work, memory-bandwidth bound, which XLA fuses into one
-pass.  A Pallas variant is provided for the large-batch case to keep the
-entire unpack in VMEM-resident tiles and to fold the uint8→int32 widening
-into the same pass as the gather (avoiding an intermediate int32 copy of
-the gathered bytes in HBM).
+Device formulation: the scatter tables are inverted host-side into
+per-config gather indices (codecs/pcm.pcm_gather_indices); the kernel is
+then a single fused select + shift + sign-extend over a
+``[n_chunks, chunk_size]`` uint8 batch — elementwise, memory-bandwidth
+bound work that XLA fuses into one pass.  Plain JAX; no hand-written
+kernel.
 """
 
 from __future__ import annotations
@@ -33,9 +31,8 @@ def _unpack(chunks: jax.Array, bits_per_sample: int, channels: int):
 
     The byte permutation is baked in as *static column selects* (the index
     tables are compile-time constants with ≤36 entries) rather than an XLA
-    gather — a gather here compiles pathologically on TPU and the unrolled
-    form lowers to plain VPU selects/shifts that XLA fuses into one
-    memory-bound pass.
+    gather; the unrolled form lowers to plain selects/shifts that XLA fuses
+    into one memory-bound pass.
     """
     idx = pcm_gather_indices(bits_per_sample, channels)  # host-side constant
     n = chunks.shape[0]

@@ -6,10 +6,10 @@ and later matrices see the update), each a ≤(channels+2)-term dot over the
 frame's channels plus two LFSR noise channels, with 64-bit accumulation,
 ``>> 14`` truncation to int32, quant-step masking and a bypassed-LSB add.
 
-TPU formulation: frames are batched on the leading axis ([F, L, C] padded
-to the batch maxima), the 6 matrix applications unroll statically with
-per-frame active masks, and each application is a vectorised limb-exact
-dot over the channel axis — elementwise VPU work across F×L.
+Device formulation: frames are batched on the leading axis ([F, L, C]
+padded to the batch maxima), the 6 matrix applications unroll statically
+with per-frame active masks, and each application is a vectorised
+limb-exact dot over the channel axis — elementwise work across F×L.
 
 The output stage (output shifts + RIFF WAVE channel permutation,
 mlp.c:514-533) is fused here as well.
@@ -76,11 +76,9 @@ def rematrix_frames_tl(
     n_mats: int = MAX_MATRICES,
 ):
     """Time-leading :func:`rematrix_frames`: the frame batch [F, L, C]
-    factors as F = Bc·Fc with the C channels on sublanes and the Bc
-    restart chains on the 128-lane axis.  Bit-identical semantics; the
-    C-minor form ran at 8/128 lane utilization (measured 1.7× slower at
-    the production chunk shape) and forced two stream-size permutes
-    around it in the uniform pipeline."""
+    factors as F = Bc·Fc with the C channels on a major axis and the Bc
+    restart chains minor.  Bit-identical semantics; with chains minor the
+    uniform pipeline needs no stream-size permute around it."""
     Fc, L, C, Bc = channels.shape
     cidx = jnp.arange(C, dtype=jnp.int32)
 

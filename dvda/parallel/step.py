@@ -10,7 +10,7 @@ driver can compile-check it and dry-run the sharded version.
 
 Sharding (see parallel/mesh.py): filter lanes are (frame × channel) and
 shard over ``(dp, tp)``; the rematrix needs every channel of a frame, so
-the channel axis is gathered (XLA inserts the all-gather over ``tp``/ICI)
+the channel axis is gathered (XLA inserts the all-gather over ``tp``)
 while frames stay sharded over ``dp``.
 """
 
@@ -91,7 +91,7 @@ def batch_shardings(mesh) -> DecodeBatch:
 
 def make_sharded_step(mesh):
     """jit ``decode_step`` over the mesh: filter runs channel-sharded (tp),
-    XLA gathers channels over ICI for the rematrix, frames stay dp-sharded."""
+    XLA gathers channels for the rematrix, frames stay dp-sharded."""
 
     def step(b: DecodeBatch) -> jax.Array:
         F, C = b.residuals.shape[:2]

@@ -1,18 +1,16 @@
 """Persistent XLA compilation cache (process-global, enabled once).
 
 The decode pipeline compiles one XLA program per (geometry bucket ×
-mode); first compiles cost 20-80 s on TPU (and ~6x that with
-``filter_unroll>1``).  The programs are deterministic functions of the
-geometry, so JAX's persistent compilation cache turns every repeat
-compile — across tracks, processes, and service restarts — into a
-~30 ms disk read (measured through this container's relay: 2.3 s ->
-0.03 s for a toy program; the real chunk program's 27 s warm-up drops
-the same way).
+mode).  The programs are deterministic functions of the geometry, so
+JAX's persistent compilation cache turns every repeat compile — across
+tracks, processes and service restarts — into a disk read.
 
-The reference decoder has no analog (nothing to compile); this is part
-of the rebuild's own XLA-facing runtime.  Enabled by default at
-``$XDG_CACHE_HOME/dvda/jax`` (``~/.cache/...``); ``DVDA_COMPILE_
-CACHE=<dir>`` overrides the location, ``=0`` disables (config.py table).
+One rule decides where the cache lives (``config.env_compile_cache``):
+
+* ``JAX_COMPILATION_CACHE_DIR`` set: JAX reads it itself, and this module
+  sets no directory of its own;
+* otherwise the fixed ``<checkout>/.jaxcache`` (gitignored);
+* ``DVDA_COMPILE_CACHE=0`` turns the default off.
 """
 
 from __future__ import annotations
@@ -25,9 +23,9 @@ _applied: str | None = None
 
 
 def ensure_compile_cache() -> str | None:
-    """Point JAX's persistent compilation cache at the configured
-    directory (idempotent; call before the first traced call — package
-    ``ops/__init__`` does).  Returns the active cache dir or None."""
+    """Enable the persistent compilation cache (idempotent; call before
+    the first traced call — package ``ops/__init__`` does).  Returns the
+    active cache dir or None."""
     global _applied
     if _applied is not None:
         return _applied or None
@@ -35,24 +33,18 @@ def ensure_compile_cache() -> str | None:
     from ..config import env_compile_cache
 
     path = env_compile_cache()
-    if not path:
-        _applied = ""
-        return None
+    if not path or os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        _applied = path  # "" = off; JAX's own variable needs nothing
+        return path or None
     try:
         os.makedirs(path, exist_ok=True)
         import jax
 
         jax.config.update("jax_compilation_cache_dir", path)
-    except Exception as exc:  # unwritable dir, ancient jax, ...
+    except Exception as exc:  # unwritable checkout, ...
         from .log import logger
 
-        if os.environ.get("DVDA_COMPILE_CACHE"):
-            # the operator pinned this path: a typo'd/unwritable dir
-            # silently repaying every first-compile must be visible
-            logger.warning("compile cache disabled (DVDA_COMPILE_"
-                           "CACHE=%s): %s", path, exc)
-        else:
-            logger.debug("compile cache disabled (%s): %s", path, exc)
+        logger.warning("compile cache disabled (%s): %s", path, exc)
         _applied = ""
         return None
     _applied = path
